@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Gradient-engine throughput: ESS/s for NUTS / ChEES / MEADS on TPU.
+"""Gradient-engine throughput: ESS/s for NUTS / ChEES / MEADS on the GPU.
 
 10-D correlated Gaussian (same target as bench.py), many vmapped chains.
 Each engine: warmup, one compiled+warmed stored run, ESS from the stored

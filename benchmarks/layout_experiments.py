@@ -4,10 +4,10 @@ Questions, each answered by a single-launch ``jit(fori_loop)`` timing with
 state chained between calls (CLAUDE.md microbenchmark rule):
 
 A. baseline: the real package step at W=2^21, P=10, rbg PRNG (bench config).
-B. P=16: params fill the padded sublane tile exactly — if the 10->16 layout
-   padding claim (docs/design.md §9) is real, step TIME should match A
-   (same padded bytes moved) while doing 1.6x the useful work.
-C. P=8: one sublane tile, zero padding, 0.8x the bytes of A's padded state.
+B. P=16: params fill a 16-wide tile exactly — if the step pads P=10 to 16
+   (docs/design.md §10), step TIME should match A (same padded bytes
+   moved) while doing 1.6x the useful work.
+C. P=8: one 8-wide tile, zero padding, 0.8x the bytes of A's padded state.
 D. flat carry: the ROADMAP "flat view" experiment done at the XLA level —
    loop state carried as unpadded (n*P,) vectors, reshaped to (n, P) inside
    the step for partner/z/logp math. Measures whether removing carry
@@ -16,7 +16,7 @@ E. flat math: as D, but the elementwise proposal/select also run on flat
    vectors (partner roll becomes a flat roll by r*P; z and the accept mask
    broadcast via (n,1)->(n,P)->flat reshapes); only logp reshapes to 2-D.
 
-Run: ``timeout 900 python benchmarks/layout_experiments.py`` (TPU).
+Run: ``timeout 900 python benchmarks/layout_experiments.py``.
 Prints one JSON line per experiment; optionally dumps a profiler trace and
 the optimized HLO of A with ``--artifacts``.
 """
@@ -201,7 +201,7 @@ def main():
         results[name] = {"updates_per_s": rate, "step_us": step_us * 1e6}
         print(json.dumps({name: results[name]}), flush=True)
     if artifacts:
-        dump_artifacts("docs/artifacts/layout_r2")
+        dump_artifacts("chiprun_out/layout")
 
 
 if __name__ == "__main__":

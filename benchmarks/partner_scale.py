@@ -1,7 +1,7 @@
 """StretchMove partner-selection scale study (round-4 VERDICT item 4).
 
 The one place the reference's exact algorithm (per-walker iid partner
-draw, ``MCMCpp/Movers/StretchMove.h:102``) lost to TPU perf is the
+draw, ``MCMCpp/Movers/StretchMove.h:102``) gave up for speed is the
 per-row HBM gather. This script measures every candidate at W=2^18 and
 W=2^21, P=10, full stretch step (both halves):
 
@@ -17,7 +17,7 @@ Method: single-launch ``jit(fori_loop)`` with state chained between
 calls (CLAUDE.md microbenchmark rule); peak memory from the compiled
 ``memory_analysis()``. Results belong in docs/design.md §10b.
 
-Run: ``timeout 1800 python benchmarks/partner_scale.py`` (TPU).
+Run: ``timeout 1800 python benchmarks/partner_scale.py``.
 ``--smoke`` runs tiny shapes on CPU to check the harness logic.
 """
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Scaling-efficiency benchmark: walker throughput vs device count.
 
-The BASELINE target is ≥85% samples/s scaling efficiency 1 chip → 1 host →
-4 hosts. On real hardware run this per topology; on a dev box use
-``--cpu-mesh`` to validate the sharded program over virtual devices (logic
-check — CPU times are not TPU times).
+Measures samples/s scaling efficiency from 1 card to all the cards of a
+host (and across hosts with ``--distributed``). On real hardware run this
+per topology; on a dev box use ``--cpu-mesh`` to validate the sharded
+program over virtual devices (logic check — CPU times are not GPU times).
 
 Weak scaling: walkers per device held fixed, total walkers grow with the
 mesh; efficiency = (updates/s at N devices) / (N x updates/s at 1 device).
@@ -32,8 +32,7 @@ def main():
     ap.add_argument("--distributed", action="store_true",
                     help="multi-host mode: jax.distributed.initialize() "
                          "then measure the FULL global mesh only (run the "
-                         "same command on every host — see "
-                         "benchmarks/pod_scaling.sh)")
+                         "same command on every host)")
     ap.add_argument("--base-rate", type=float, default=None,
                     help="single-device updates/s from a prior 1-chip run "
                          "(efficiency denominator in --distributed mode)")
@@ -59,20 +58,20 @@ def main():
 
     if args.distributed:
         if args.base_rate is None:
-            ap.error("--distributed needs --base-rate <single-chip "
-                     "updates/s> (run step 1 of pod_scaling.sh first); "
+            ap.error("--distributed needs --base-rate <single-card "
+                     "updates/s> (run this script on one card first); "
                      "without it the efficiency column would divide the "
                      "slice rate by itself")
         from mcmcpp_tpu.parallel.distributed import initialize
 
-        initialize()  # TPU pods: auto-discovery; idempotent
+        initialize()  # cluster auto-discovery (e.g. SLURM); idempotent
 
     target = correlated_gaussian(dim=10)
     all_devices = jax.devices()
     if args.distributed:
         # one measurement over the whole slice; per-subset iteration is
-        # a single-controller concept (use pod_scaling.sh to collect the
-        # 1-chip / 1-host denominators first)
+        # a single-controller concept (run on one card and on one host
+        # first to collect the denominators)
         counts = [len(all_devices)]
     else:
         counts = [n for n in (1, 2, 4, 8, 16, 32) if n <= len(all_devices)]

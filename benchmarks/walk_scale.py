@@ -3,7 +3,7 @@
 ``movers/walk.py``'s exact per-walker S-subset path ("gather" mode,
 O(n·S) memory) claims usability at W=2^21 — the scale the reference's
 per-walker Knuth selection sampling (``MCMCpp/Movers/WalkMove.h:130-150``)
-serves on the CPU. This script MEASURES that claim on the TPU: step time
+serves on the CPU. This script MEASURES that claim on the GPU: step time
 and compiled peak memory for both partner modes at W=2^18..2^21, P=10,
 so docs/design.md can carry a table instead of a docstring assertion.
 
@@ -12,7 +12,7 @@ Method: single-launch ``jit(fori_loop)`` with state chained between calls
 ``memory_analysis()`` (temp + argument bytes — what the chip actually
 reserves, not live-array heuristics).
 
-Run: ``timeout 1800 python benchmarks/walk_scale.py`` (TPU).
+Run: ``timeout 1800 python benchmarks/walk_scale.py``.
 Prints one JSON line per (W, mode) cell.
 """
 

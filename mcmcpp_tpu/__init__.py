@@ -1,4 +1,4 @@
-"""mcmcpp_tpu — a TPU-native ensemble-MCMC / probabilistic-inference framework.
+"""mcmcpp_tpu — an accelerator-native ensemble-MCMC / probabilistic-inference framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of jmatta1/MCMCpp
 (header-only C++ affine-invariant ensemble MCMC; see /root/reference). The

@@ -1,4 +1,4 @@
-"""Post-hoc chain analysis (TPU-native rebuild of ``MCMCpp/Analysis/``)."""
+"""Post-hoc chain analysis (accelerator-native rebuild of ``MCMCpp/Analysis/``)."""
 
 from mcmcpp_tpu.analysis.autocorr import autocorr_time, normalized_autocov
 from mcmcpp_tpu.analysis.streaming import StreamingACT, autocorr_time_streaming

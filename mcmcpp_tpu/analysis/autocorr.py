@@ -1,9 +1,9 @@
 """Integrated autocorrelation time (ACT) via FFT autocovariance.
 
-TPU-native rebuild of ``MCMCpp/Analysis/AutoCorrCalc.h`` +
+accelerator-native rebuild of ``MCMCpp/Analysis/AutoCorrCalc.h`` +
 ``MCMCpp/Analysis/Detail/AutoCov.h``: the hand-rolled iterative radix-2
 Cooley–Tukey FFT (AutoCov.h:167-248) becomes ``jnp.fft`` (XLA-fused,
-batched over walkers on the VPU); the per-walker loop + Kahan-compensated
+batched over walkers); the per-walker loop + Kahan-compensated
 averaging (AutoCorrCalc.h:210-221) becomes a batched mean; the windowed
 Sokal sum τ = −1 + 2·Σρ with adaptive window ``t > c·τ̂(t)``
 (AutoCorrCalc.h:185-206, c = window_scaling, default 4) is a cumulative-sum

@@ -4,7 +4,7 @@ Rebuild of ``MCMCpp/Analysis/CovarianceMatrix.h``: the reference makes a
 single Kahan-compensated pass over step iterators (:233-260) with an
 optional slice interval to de-correlate samples (:154-174). Here the sums
 are float64 (compensation unnecessary) and the heavy lifting is one
-``X.T @ X`` — an MXU matmul when run on device.
+``X.T @ X`` — one matmul when run on device.
 """
 
 import numpy as np
@@ -32,8 +32,8 @@ def covariance_matrix(samples, thin=1, burn_in=0):
     n = x.shape[0]
     mean = jnp.mean(x, axis=0)
     xc = x - mean[None, :]
-    # HIGHEST keeps the f32 matmul in true f32 on TPU (default precision
-    # decomposes to bf16 passes — worse than the Kahan sums this replaces)
+    # HIGHEST keeps the f32 matmul in true f32 (the default precision may
+    # run as TF32 or bf16 passes — worse than the Kahan sums this replaces)
     cov = jnp.matmul(xc.T, xc, precision=jax.lax.Precision.HIGHEST) / (n - 1)
     return np.asarray(cov, np.float64)
 

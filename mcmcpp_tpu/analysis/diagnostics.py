@@ -188,7 +188,7 @@ def nested_rhat(samples, n_superchains):
 
     Classic split-R̂ needs each chain long enough to estimate its own
     variance — useless in THIS framework's natural regime (thousands of
-    TPU-parallel walkers, few steps each). Nested R̂ groups the C chains
+    massively parallel walkers, few steps each). Nested R̂ groups the C chains
     into K superchains of M = C/K chains and compares the
     between-SUPERCHAIN variance to the total within-superchain variance
     (between-chain + within-chain), which is well defined even at ONE

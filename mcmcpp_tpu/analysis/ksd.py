@@ -19,9 +19,9 @@ Base kernel here is the inverse multiquadric (IMQ)
 prove *detects non-convergence* (Gaussian/Matérn kernels can be blind to
 it in ≥3 dims).
 
-TPU-first shape: everything is pairwise n×n algebra — squared distances,
+Accelerator-first shape: everything is pairwise n×n algebra — squared distances,
 score inner products, and the trace term assemble from three (n, n)
-matmuls (MXU work) plus elementwise maps; the whole estimator is one
+matmuls plus elementwise maps; the whole estimator is one
 fused XLA program, evaluated block-wise over rows so memory stays
 O(block · n) at any chain length.
 

@@ -8,7 +8,7 @@ draws. If the pipeline is calibrated, ranks are uniform on {0, …, L};
 systematic ∪-shapes (overconfident posteriors), ∩-shapes (diffuse), or
 skews (bias) each have a distinct signature.
 
-TPU-first: the simulate-and-rank pipeline is a pure function of the key,
+Accelerator-first: the simulate-and-rank pipeline is a pure function of the key,
 so the replication axis is one ``vmap`` (``vectorized=True``) when the
 fit itself is jittable (analytic posteriors, ADVI, Laplace, a functional
 HMC kernel); driver-class fits (EnsembleSampler, NUTSSampler) run in a

@@ -15,11 +15,11 @@ No reference counterpart (jmatta1/MCMCpp has no predictive layer);
 north-star scope completing the forecasting story: simulate
 (`particle_forecast` / `lgss.forecast`) → score (here) → compare.
 
-TPU-first shape: the univariate estimator uses the exact O(n log n)
+Accelerator-first shape: the univariate estimator uses the exact O(n log n)
 sorted identity ``E|X−X'| = (2/n²) Σ_i (2i − n + 1) x_(i)`` — one sort
 + one weighted sum per location, batched over the location axis; the
 energy score assembles from one (n, n) pairwise-distance Gram block
-(MXU work) per location.
+(matmul work) per location.
 """
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Host-side chain store for sampled ensembles.
 
-TPU-native replacement for the reference's linked list of fixed-size blocks
-(``MCMCpp/Chain/Chain.h``, ``MCMCpp/Chain/ChainBlock.h``): on TPU the chain
+Accelerator-native replacement for the reference's linked list of fixed-size blocks
+(``MCMCpp/Chain/Chain.h``, ``MCMCpp/Chain/ChainBlock.h``): on an accelerator the chain
 must NOT live in HBM (it is write-once history), so stored steps stream
 host-ward in chunks and land in a block list here. Byte-capped exactly like
 the reference (default 2 GiB, ``EnsembleSampler.h:67``); appends past

@@ -1,4 +1,4 @@
-"""emcee-compatible facade over the TPU ensemble sampler.
+"""emcee-compatible facade over the ensemble sampler.
 
 The reference (MCMCpp) is the C++ twin of emcee's affine-invariant
 ensemble sampler (same Goodman-Weare algorithm family, ``README.md:1-2``),

@@ -17,8 +17,8 @@ here need a likelihood and the gradient engines need ∇G:
   approximation otherwise. The prior term is handled by the paper's
   linearly-implicit split-step, so stiff priors don't constrain Δt.
 
-TPU shape: the interaction terms are (J, E)/(J, P) matmuls — the whole
-update is MXU work with no branches; J (ensemble size) is the shardable
+Accelerator shape: the interaction terms are (J, E)/(J, P) matmuls — the whole
+update is matmul work with no branches; J (ensemble size) is the shardable
 axis (``mesh=``, same contract as SVGD/EnKF). Each call runs its whole
 iteration loop in one ``lax.scan`` launch.
 

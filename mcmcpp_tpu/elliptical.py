@@ -8,11 +8,11 @@ the likelihood threshold is met. Rejection-free, tuning-free, and exact —
 the classic gradient-free kernel the ensemble movers can't replace when
 the prior covariance is strong.
 
-TPU shape: chains are a vmapped (C, P) batch (axis mesh-shardable); the
+Accelerator shape: chains are a vmapped (C, P) batch (axis mesh-shardable); the
 angle-shrinking loop is a batched masked ``while_loop`` (all chains
 iterate until the LAST one accepts — same pattern as the zeus-style
 ensemble slice move in movers/slice.py), and the prior rotation is one
-(C, P) x (P, P) matmul on the MXU.
+(C, P) x (P, P) matmul.
 
 No reference counterpart (the C++ library has no prior-structure-aware
 kernels); north-star scope. Driver surface (init/run/get_samples)

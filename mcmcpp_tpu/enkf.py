@@ -17,11 +17,11 @@ its model surface is the scalar ``calcLogPostProb``,
 filtering matrix: exact-linear (lgss) × sampling (particle) ×
 marginalized-mixture (rbpf) × ensemble-Gaussian (this module).
 
-TPU-native design
+Accelerator-native design
 -----------------
 The analysis step is nothing but matmuls on the (N, D) ensemble block:
 anomaly products ``Xaᵀ Ya / (N−1)``, one (E, E) Cholesky, and a rank-N
-update — exactly the MXU's diet, with no per-member control flow. Time
+update — exactly the matrix units' diet, with no per-member control flow. Time
 is a single ``lax.scan``; N and D can both be large (the (D, D) state
 covariance is NEVER formed — only (D, E) and (E, E) products).
 Multiplicative covariance inflation is a scalar multiply on anomalies;

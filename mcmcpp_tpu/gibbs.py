@@ -8,9 +8,9 @@ kernel for the hyperparameters conditioned on the latent). No reference
 counterpart (jmatta1/MCMCpp has single-kernel samplers only); north-star
 scope, alongside the other compound engines.
 
-TPU shape: one Gibbs sweep is a pure function over a dict of (size,)
+Accelerator shape: one Gibbs sweep is a pure function over a dict of (size,)
 blocks; the chain axis is one ``vmap`` (so C chains run the sweep in
-lockstep, matmuls batched onto the MXU), steps are a ``lax.scan``, and
+lockstep, matmuls batched), steps are a ``lax.scan``, and
 storage reuses the shared pipelined host loop (``chain.run_pipelined``).
 Kernels may compute per-block structure from the OTHER blocks' current
 values (e.g. a Cholesky that depends on live hyperparameters).

@@ -25,7 +25,7 @@ the cheapest member of the family after MALA, and fully fused by XLA.
 The reference library is gradient-free (black-box Calculator contract,
 ``/root/reference/MCMCpp/Utility/UserOjbectsTest.h:144-151``); this kernel
 is north-star scope alongside HMC/NUTS/MALA — included because its
-robust-adaptation property is exactly what unattended large-batch TPU runs
+robust-adaptation property is exactly what unattended large-batch accelerator runs
 need (no hand-tuned step size, no divergence cascade).
 """
 

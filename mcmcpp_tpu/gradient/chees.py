@@ -1,4 +1,4 @@
-"""ChEES-HMC: gradient-adapted trajectory lengths, TPU-shaped.
+"""ChEES-HMC: gradient-adapted trajectory lengths, accelerator-shaped.
 
 Hoffman, Radul & Sountsov (2021, AISTATS) "An Adaptive-MCMC Scheme for
 Setting Trajectory Lengths in Hamiltonian Monte Carlo". NUTS's recursive

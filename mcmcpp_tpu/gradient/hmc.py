@@ -155,7 +155,7 @@ def welford_update_batch(w: WelfordState, x):
 
     Dispatches on the accumulator rank: ``m2`` of rank 1 tracks diagonal
     second moments, rank 2 the full scatter matrix (one (C,P)ᵀ(C,P)
-    matmul per warmup step — MXU work, shared across chains).
+    matmul per warmup step, shared across chains).
     """
     c = x.shape[0]
     count = w.count + c

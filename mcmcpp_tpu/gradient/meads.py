@@ -12,7 +12,7 @@ and the composition is valid MCMC from step one: there is no
 warmup/sampling phase distinction and no dual-averaging schedule. This
 is the ensemble-on-a-chip counterpart of the affine-invariant samplers:
 the cross-chain statistics that drive adaptation are batch reductions,
-free on a TPU where the chain axis is just a sharded array dimension.
+free on an accelerator where the chain axis is just a sharded array dimension.
 
 Parametrization (whitened space, see ``_fold_parameters``):
 

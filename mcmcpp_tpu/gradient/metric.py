@@ -11,7 +11,7 @@ SAME kernel code runs under either metric:
 - **dense**: ``inv_mass`` is a :class:`DenseMassMatrix` carrying the
   estimated posterior covariance ``Σ = M⁻¹`` with its Cholesky factor
   ``L`` (``Σ = LLᵀ``) and ``L⁻ᵀ`` precomputed once per metric update, so
-  the per-step cost is matmuls — MXU work, no solves in the hot loop.
+  the per-step cost is matmuls, no solves in the hot loop.
   A dense metric rotates AND scales: on a correlated Gaussian it turns
   the leapfrog into integration of an isotropic target, collapsing the
   condition number that forces tiny steps under a diagonal metric.

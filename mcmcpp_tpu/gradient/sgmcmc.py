@@ -8,7 +8,7 @@ gradient-noise injection). There is no Metropolis correction — the bias
 is O(step_size); use a small constant step or the polynomial decay
 schedule ``step_size_decay``.
 
-TPU shape: ONE shared minibatch per step (a single gather from the
+Accelerator shape: ONE shared minibatch per step (a single gather from the
 device-resident data pytree, amortized across all chains), chains vmapped
 as a (C, P) batch whose axis shards over the mesh like every other
 sampler; the data pytree stays replicated per device. The stored "logp"

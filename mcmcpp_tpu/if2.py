@@ -11,7 +11,7 @@ PMMH when you want a POINT estimate instead of a posterior, and it
 completes the particle toolbox (filter / smoother / PMMH / particle
 Gibbs / SMC² / forecast all live beside it).
 
-TPU shape: the augmented cloud is a pair of arrays (N, D) + (N, P);
+Accelerator shape: the augmented cloud is a pair of arrays (N, D) + (N, P);
 one data pass is a single ``lax.scan`` over time (perturb-θ → propagate
 → weight → joint resample, all batched); the M cooling iterations are a
 host loop over one jitted pass program. ``mesh=`` shards the particle

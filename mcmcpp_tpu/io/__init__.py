@@ -7,7 +7,7 @@ HistMulti}.h`` are all 0-byte placeholder files (SURVEY.md §2 #31). This is
 the realized design: engines own the file format, outputs adapt framework
 objects (chains, histograms, matrices, scalars) into named arrays, and
 :class:`DataWriter` routes outputs to an engine. CERN-ROOT output is out of
-scope on TPU hosts; HDF5 takes its slot (gated on h5py).
+scope on accelerator hosts; HDF5 takes its slot (gated on h5py).
 
 Checkpoint/resume (absent from the reference, SURVEY.md §5) lives in
 ``mcmcpp_tpu.io.checkpoint``.

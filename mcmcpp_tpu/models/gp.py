@@ -185,11 +185,10 @@ def gram_cholesky(kernel, xs, jitter=1e-6, max_tries=5):
     """Lower Cholesky of gram(xs) + jitter·I — the ``prior_chol`` input
     for the elliptical-slice / interweave kernels.
 
-    TPU robustness (measured 2026-08-20 on v5e): the TPU's blocked f32
-    Cholesky NaNs on ill-conditioned RBF grams that CPU LAPACK survives
-    at the same jitter (48-point unit-interval RBF, l≈0.8: 51% NaN at
-    jitter=1e-5; clean at 1e-3 — and ``default_matmul_precision=
-    "highest"`` does NOT help, it is the factorization itself). So the
+    Robustness: an accelerator's blocked f32 Cholesky can NaN on
+    ill-conditioned RBF grams that CPU LAPACK survives at the same jitter
+    (e.g. a 48-point unit-interval RBF with l≈0.8 at jitter=1e-5 — it is
+    the factorization itself, not matmul precision). So the
     factorization retries with 10× jitter while any NaN appears, up to
     ``max_tries`` escalations (the standard GPML safeguard), inside a
     ``lax.while_loop`` so the function stays jittable with

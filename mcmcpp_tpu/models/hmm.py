@@ -15,7 +15,7 @@ and fully vectorized (compute them with one batched op over your data).
 ``log_pi`` is the (K,) initial log-distribution, ``log_gamma`` the (K, K)
 row-stochastic transition log-matrix (rows: from-state).
 
-TPU-native design
+Accelerator-native design
 -----------------
 Everything runs in log space. The forward recursion is a max-K² matvec
 per step under ``lax.scan``; ``method="parallel"`` instead reformulates

@@ -10,12 +10,12 @@ approximated by the Dirichlet-Laplacian eigenbasis,
 so a GP function value is an exact linear map of ``m`` iid-normal
 weights: ``f = Φ (√S(θ) ⊙ β)``, ``β ~ N(0, I_m)``.
 
-Why this layer exists (TPU-first rationale): the exact-GP machinery in
+Why this layer exists (accelerator-first rationale): the exact-GP machinery in
 :mod:`mcmcpp_tpu.models.gp` pays an O(N³) Cholesky per hyperparameter
-value — a sequential, MXU-hostile factorization. Here the basis ``Φ``
+value — a sequential, matmul-hostile factorization. Here the basis ``Φ``
 is DATA-ONLY (built once, outside the sampler), and every log-density /
 gradient evaluation is one ``(N, m)`` matmul plus elementwise spectral
-weights — exactly the shape the MXU wants, with hyperparameter
+weights — exactly the shape the matrix units want, with hyperparameter
 gradients flowing through ``S(θ)`` for free. GP priors thereby become
 usable inside every gradient engine (HMC/NUTS/ChEES/MEADS/SGLD) and the
 DSL at scale.

@@ -7,10 +7,10 @@ No reference counterpart (jmatta1/MCMCpp has no time-series layer at all
 ``MCMCpp/EnsembleSampler.h:80-96``); north-star scope, alongside the GP
 library in :mod:`mcmcpp_tpu.models.gp`.
 
-TPU-native design
+Accelerator-native design
 -----------------
 A Kalman filter is textbook-sequential: T tiny (D, D) solves chained by a
-data dependence, the worst possible shape for a TPU (the MXU idles while
+data dependence, the worst possible shape for an accelerator (the matrix units idle while
 ``lax.scan`` serializes T steps). Both hot paths here are therefore
 reformulated as **associative scans** so XLA compiles them to O(log T)
 depth of *batched* matmuls:

@@ -49,7 +49,7 @@ def correlated_gaussian(dim=10, rho=0.5, dtype=jnp.float32):
     """AR(1)-correlated standardized Gaussian: Σ_ij = rho^|i−j|.
 
     The benchmark target (BASELINE.md). Uses the precision Cholesky so the
-    hot logp is a single small matmul (MXU)."""
+    hot logp is a single small matmul."""
     idx = np.arange(dim)
     cov = rho ** np.abs(idx[:, None] - idx[None, :])
     prec_chol = jnp.asarray(
@@ -144,7 +144,7 @@ def bayesian_linear_regression(n_data=200, dim=5, noise=0.5, prior_scale=10.0,
     posterior is EXACTLY N(mu_n, Sigma_n) with
     Sigma_n = (X'X/noise^2 + I/prior_scale^2)^-1, mu_n = Sigma_n X'y/noise^2
     — the strongest possible oracle for sampler/VI/Laplace parity tests.
-    The logp is one (n, P) matvec per evaluation (MXU-friendly)."""
+    The logp is one (n, P) matvec per evaluation (matmul-friendly)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n_data, dim))
     w_true = rng.normal(size=dim)
@@ -171,7 +171,7 @@ def logistic_regression(n_data=300, dim=4, prior_scale=2.5, seed=0,
     No closed-form posterior; the Laplace approximation around the MAP is
     the reference oracle (accurate to O(1/n) here), enabling cross-engine
     consistency tests (MCMC mean vs Laplace mean). logp is one matvec +
-    ``log_sigmoid`` reduction — MXU + VPU friendly."""
+    ``log_sigmoid`` reduction — matmul + elementwise friendly."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n_data, dim))
     w_true = rng.normal(size=dim)

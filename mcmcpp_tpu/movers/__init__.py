@@ -1,4 +1,4 @@
-"""Proposal movers (TPU-native equivalents of ``MCMCpp/Movers/``)."""
+"""Proposal movers (accelerator-native equivalents of ``MCMCpp/Movers/``)."""
 
 from mcmcpp_tpu.movers.base import Mover
 from mcmcpp_tpu.movers.stretch import StretchMove

@@ -17,7 +17,7 @@ stretch move uses ``(P-1)·log z``, cf. ``MCMCpp/Movers/StretchMove.h:110``).
 
 The accept test draws ``-Exponential`` for log u, matching the reference's
 ``getNegExponentialReal()`` (``MCMCpp/Utility/MultiSampler.h:86``) and
-avoiding log(0). Accept/reject is branchless ``jnp.where`` — the TPU-native
+avoiding log(0). Accept/reject is branchless ``jnp.where`` — the accelerator-native
 replacement for ``Walker::jumpToNewPointSwap`` / ``stayAtCurrentPoint``
 (``MCMCpp/Walker/Walker.h:105,173``).
 """

@@ -18,7 +18,7 @@ from mcmcpp_tpu.ops.partner import select_partners
 
 
 class DifferentialEvolutionMove(Mover):
-    """``partner_mode``: "roll" (TPU-fast, two distinct shared shifts) or
+    """``partner_mode``: "roll" (accelerator-fast, two distinct shared shifts) or
     "gather" (iid distinct pair per walker); see ops/partner.py."""
 
     def __init__(self, gamma=None, jitter=1e-4, partner_mode="roll"):

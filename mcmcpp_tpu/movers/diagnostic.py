@@ -9,7 +9,7 @@ Rebuilds of ``MCMCpp/Movers/Diagnostic/``:
 - :class:`SequenceMove` (SequenceMove.h:102-122): deterministic fixed-step
   increments; used by the InnerBenchmark harness to time pure framework
   overhead. The reference's find-50th-prime busy-work (SequenceMove.h:135-162)
-  simulated an expensive CPU likelihood; the TPU benchmark instead adds
+  simulated an expensive CPU likelihood; the benchmark here instead adds
   synthetic FLOPs via the benchmark's logp, so the mover stays pure.
 
 Both always accept and ignore the complementary half and logp.

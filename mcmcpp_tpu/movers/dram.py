@@ -6,12 +6,12 @@ single-stage special case): on a stage-1 rejection a SECOND, shrunk
 proposal is tried from the same point, accepted with Mira's (2001)
 delayed-rejection ratio, which preserves detailed balance exactly.
 
-TPU-native design: both stages are computed every step — fixed shapes,
+Accelerator-native design: both stages are computed every step — fixed shapes,
 two batched logp evaluations per half-step, branchless three-way select
 (Y1 / Y2 / X) — so the scan body stays a single fused program with no
 data-dependent control flow (the per-walker "if rejected, retry" of a
 CPU implementation would be a divergent branch; here the second stage's
-cost is paid uniformly, which on the MXU/VPU is cheaper than any mask
+cost is paid uniformly, which on the matrix/vector units is cheaper than any mask
 gymnastics).
 
 The "adaptive" half follows the ensemble pattern rather than Haario's

@@ -6,7 +6,7 @@ user covariance (symmetry / positive diagonal / diagonal detection,
 the identity matrix when validation fails (:314-333). Here validation is
 NumPy at construction time and the factorization is
 ``jnp.linalg.cholesky`` / a diagonal fast path; sampling is one
-``normals @ L.T`` matmul (MXU) instead of the reference's reverse-order
+``normals @ L.T`` matmul instead of the reference's reverse-order
 triangular loop (:164-198). Symmetric proposal ⇒ Metropolis factor 0.
 
 (The reference's include-guard collision and double-sampling defects,
@@ -87,7 +87,7 @@ class MetropolisHastingsMove(Mover):
         n, p = active.shape
         normals = jax.random.normal(key, (n, p), active.dtype)
         if "chol" in state:
-            step = normals @ state["chol"].T  # MXU triangular multiply
+            step = normals @ state["chol"].T  # triangular matmul
         else:
             step = normals * state["diag"][None, :]
         proposal = active + self.scale * step

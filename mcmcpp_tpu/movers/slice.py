@@ -9,7 +9,7 @@ no accept/reject — every finished walker moves — so this mover overrides
 mover contract, ``MCMCpp/EnsembleSampler.h:49-51``, has no counterpart;
 this is north-star scope, API parity with the public ``zeus`` library).
 
-TPU shape discipline: the stepping-out and shrinking loops are
+Accelerator shape discipline: the stepping-out and shrinking loops are
 data-dependent per walker, so they run as whole-half batched
 ``lax.while_loop``s with per-walker active masks — every iteration costs
 one (or two) batched ``logp`` evaluations for the full ``(n, P)`` half,
@@ -38,7 +38,7 @@ class EnsembleSliceMove(Mover):
     default and remains exactly valid untuned — any fixed ``mu`` gives a
     correct slice sampler, tuning only trades evaluations for step size).
     ``max_steps``: stepping-out cap per side; ``max_shrink``: shrinking
-    cap. ``partner_mode``: "roll" (TPU-fast shared shifts) or "gather"
+    cap. ``partner_mode``: "roll" (accelerator-fast shared shifts) or "gather"
     (iid per-walker pairs); see ops/partner.py.
     """
 

@@ -31,7 +31,7 @@ from mcmcpp_tpu.ops.partner import select_partners
 
 class DESnookerMove(Mover):
     """``gamma``: line-jump scale (paper default 2.38/sqrt(2) ~ 1.683).
-    ``partner_mode``: "roll" (TPU-fast distinct shared shifts) or "gather"
+    ``partner_mode``: "roll" (accelerator-fast distinct shared shifts) or "gather"
     (iid distinct triple per walker); see ops/partner.py."""
 
     # NOTE: defaults must not touch jnp — module import must not initialize

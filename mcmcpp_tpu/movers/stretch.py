@@ -1,6 +1,6 @@
 """Goodman–Weare stretch move, batched over the half-ensemble.
 
-TPU-native rebuild of ``MCMCpp/Movers/StretchMove.h:100-117``: for every
+accelerator-native rebuild of ``MCMCpp/Movers/StretchMove.h:100-117``: for every
 active walker X, pick a random complementary walker Xk, draw z ~ g(z),
 propose Y = Xk + z·(X − Xk), and accept with probability
 min(1, z^{P-1}·p(Y)/p(X)). The per-walker loop of the reference becomes a
@@ -18,7 +18,7 @@ from mcmcpp_tpu.ops.partner import select_partners
 class StretchMove(Mover):
     """Affine-invariant stretch move with scale parameter ``a`` (default 2).
 
-    ``partner_mode``: "roll" (default, TPU-fast shared-shift pairing) or
+    ``partner_mode``: "roll" (default, accelerator-fast shared-shift pairing) or
     "gather" (reference-faithful iid pick ≙ StretchMove.h:102); see
     ``mcmcpp_tpu/ops/partner.py`` for the validity argument and benchmarks.
     """

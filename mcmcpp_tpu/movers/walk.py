@@ -16,8 +16,9 @@ Partner selection (``partner_mode``):
   memory and O(n·S²) scalar work — NOT an (n, m) score matrix), the
   memory-scalable replacement for the reference's per-walker Knuth
   selection sampling (WalkMove.h:130-150). Usable for parity studies
-  at any W (per-row HBM gathers remain ~18-30x slower than roll in
-  the hot loop — see CLAUDE.md — so roll stays the default).
+  at any W (per-row HBM gathers cost far more than roll in the hot
+  loop — benchmarks/walk_scale.py measures it — so roll stays the
+  default).
 """
 
 import jax

@@ -1,6 +1,6 @@
 // Native block chain store: the host-side runtime component of mcmcpp_tpu.
 //
-// TPU-native re-design of the reference's chain storage layer
+// accelerator-native re-design of the reference's chain storage layer
 // (/root/reference/MCMCpp/Chain/Chain.h, Chain/ChainBlock.h): an append-only
 // store of (step, walker, param) samples kept in 64-byte-aligned fixed-size
 // blocks, byte-capped, with burn+thin compaction. Differences from the

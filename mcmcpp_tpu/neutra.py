@@ -13,7 +13,7 @@ Funnels and banana ridges that defeat a diagonal mass matrix become
 near-isotropic in z-space.
 
 Everything is pure JAX: the flow is a pytree of MLP parameters, training
-is one jitted Adam scan (batched matmuls — MXU), and the warped logp is
+is one jitted Adam scan (batched matmuls), and the warped logp is
 traceable so NUTS/ChEES/HMC work unchanged. No reference counterpart
 (gradient-free C++ library) — north-star scope.
 """
@@ -121,7 +121,7 @@ class IAF:
     """Inverse autoregressive flow (Kingma et al. 2016) with MADE masking.
 
     x_i = z_i·exp(ls_i(z_{<i})) + shift_i(z_{<i}): the SAMPLING direction
-    (base → target) is one masked-matmul pass — fully parallel, MXU-shaped —
+    (base → target) is one masked-matmul pass — fully parallel, matmul-shaped —
     which is exactly the direction NeuTra uses for training, the warped
     logp, and transport. ``inverse`` (density of an external point) is the
     sequential direction and runs a dim-length ``fori_loop``; it exists for

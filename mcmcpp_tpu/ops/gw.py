@@ -1,11 +1,11 @@
 """The Goodman–Weare stretch distribution g(z) ∝ 1/√z on [1/a, a].
 
-TPU-native equivalent of the reference's inverse-CDF functor
+accelerator-native equivalent of the reference's inverse-CDF functor
 (``MCMCpp/Utility/GwDistribution.h:40-58``): given u ~ U[0,1),
 
     z = ((√a − 1/√a) · u + 1/√a)²
 
-All ops are elementwise (VPU); vmapping over walkers is free.
+All ops are elementwise; vmapping over walkers is free.
 """
 
 import jax.numpy as jnp

@@ -1,12 +1,12 @@
 """Complementary-walker selection: shared-shift (roll) vs iid gather.
 
 The reference picks each walker's complementary partner(s) with per-walker
-uniform draws (``MCMCpp/Movers/StretchMove.h:102``). The literal TPU
+uniform draws (``MCMCpp/Movers/StretchMove.h:102``). The literal
 translation — ``jnp.take(other, randint(...))`` — lowers to a per-row HBM
-gather that measures ~18x slower than the rest of the step at large W
-(262k walkers: 7.4 ms/step vs 0.45 ms with rolls; see bench notes).
+gather, which costs far more than the rest of the step at large W
+(``benchmarks/partner_scale.py`` measures it).
 
-The TPU-native selection is a **shared random shift**: draw r uniform in
+The default selection is a **shared random shift**: draw r uniform in
 [0, m) once per half-step and pair walker i with ``other[(i + r) % m]`` —
 one contiguous ``jnp.roll``, no gather. Validity: the pairing is chosen
 independently of the chain state, so conditioned on the complement the
@@ -27,12 +27,10 @@ walker's marginal partner is still uniform over the complement, so the
 detailed-balance argument is unchanged — only the number of independent
 pairing draws per half-step changes: 1 (roll) -> m/128 (block) -> m
 (gather). Implemented as one global roll + a BLOCK-GRANULAR slab gather
-(128x fewer gather indices than per-walker modes — XLA's row gather is
-index-issue-bound at ~7 ns/row, so index count, not locality, is what
-matters). Measured full-step cost on v5e (benchmarks/partner_scale.py,
-full table + physics in docs/design.md §10b): 1.5x roll at W=2^18 and
-4.3x at W=2^21, vs 15-22x for the per-walker iid gather and 45-184x for
-a sort->monotone-gather->unsort attempt.
+(128x fewer gather indices than per-walker modes — when XLA's row gather
+is index-issue-bound, index count, not locality, is what matters). Its
+full-step cost against roll and gather is measured by
+benchmarks/partner_scale.py (design notes in docs/design.md §10b).
 """
 
 import jax
@@ -98,10 +96,10 @@ def block_partners(key, other, n, k, block=None):
     over [0, m/block) — distinct q's make the k partners of any single
     walker distinct, like the other modes.
 
-    WHY this decomposition: XLA's row gather is INDEX-ISSUE-bound, not
-    HBM-transaction-bound (~7 ns/index regardless of locality — measured
-    in benchmarks/partner_scale.py; a piecewise-contiguous per-walker
-    index stream is exactly as slow as a random one). So the fast path
+    WHY this decomposition: where XLA's row gather is INDEX-ISSUE-bound,
+    not HBM-transaction-bound (benchmarks/partner_scale.py measures it;
+    a piecewise-contiguous per-walker index stream is then exactly as slow
+    as a random one), index count is the cost. So the fast path
     gathers at BLOCK granularity: one roll (contiguous copy) + a coarse
     gather of n/block indices, each fetching a (block·P)-float row —
     128x fewer gather indices than per-walker modes.
@@ -122,9 +120,9 @@ def block_partners(key, other, n, k, block=None):
         r = jax.random.randint(k_r, (), 0, m)
         q = _distinct_batch(k_q, nb, nb, k)            # (nb, k)
         rolled = jnp.roll(other, -r, axis=0)
-        # leading-axis split only — a (nb, block*p) 2-D view would force
-        # a materialized relayout of the lane-padded (m, P) tiling (the
-        # flat-view trap, docs/design.md §10); splitting the MAJOR axis
+        # leading-axis split only — a (nb, block*p) 2-D view can force
+        # a materialized relayout of the (m, P) layout (docs/design.md
+        # §10b); splitting the MAJOR axis
         # keeps the layout and the gather still moves (block, P) slabs
         # per index.
         stacked = rolled.reshape(nb, block, p)

@@ -1,17 +1,18 @@
-"""Multi-host (pod-slice) initialization helpers.
+"""Multi-host initialization helpers.
 
 The reference is single-process pthreads (SURVEY.md §5: no distributed
 backend). Here multi-host runs are standard JAX SPMD: every host runs the
 same program, ``initialize()`` wires them into one runtime, and the
 samplers' walker mesh (``make_walker_mesh``) spans all devices — its
-``hosts`` axis crosses DCN, ``devices`` stays on ICI. Collectives inserted
+``hosts`` axis crosses the network, ``devices`` stays within a host.
+Collectives inserted
 by GSPMD (complementary-half gathers, acceptance psums) then ride the
 correct fabric automatically.
 
-Usage on each host of a slice::
+Usage on each host::
 
     from mcmcpp_tpu.parallel import distributed
-    distributed.initialize()                  # TPU pods: auto-discovery
+    distributed.initialize()     # SLURM / Open MPI / Kubernetes: discovered
     s = ShardedEnsembleSampler(logp, n_walkers=2**22, n_params=P)
     ...
 
@@ -28,9 +29,11 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                **kwargs):
     """Wire this process into the multi-host runtime.
 
-    On TPU pods all arguments are auto-discovered (just call
-    ``initialize()``); for CPU/GPU fleets pass coordinator/num/id
-    explicitly (mirrors ``jax.distributed.initialize``). No-op if already
+    Under the cluster environments ``jax.distributed.initialize``
+    detects (SLURM, Open MPI, Kubernetes, ...) all arguments are
+    discovered (just call ``initialize()``); elsewhere pass
+    coordinator/num/id explicitly (mirrors
+    ``jax.distributed.initialize``). No-op if already
     initialized.
     """
     try:

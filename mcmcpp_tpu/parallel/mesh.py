@@ -2,9 +2,10 @@
 
 The reference's only parallelism axis is "walkers across pthreads on one
 node" (``MCMCpp/Threading/RedBlkCtrlerSpinLock.h:119`` work stealing). Here
-the same axis maps onto TPU hardware as a (possibly 2-D ``hosts × devices``)
+the same axis maps onto the devices as a (possibly 2-D ``hosts × devices``)
 mesh whose flattened product shards the walker dimension: intra-host
-collectives ride ICI, cross-host ones DCN. Work stealing is unnecessary —
+collectives ride the links between a host's devices (NVLink on a GPU
+host), cross-host ones the network. Work stealing is unnecessary —
 walker updates are uniform cost, so a static equal shard is optimal.
 """
 
@@ -20,8 +21,8 @@ def make_walker_mesh(devices=None, n_hosts=None):
     """Build a ``(hosts, devices)`` mesh over ``devices`` (default: all).
 
     ``n_hosts`` defaults to the number of distinct processes owning the
-    devices (1 in single-controller runs), so on a real multi-host pod slice
-    the ``hosts`` axis crosses DCN and ``devices`` stays on ICI.
+    devices (1 in single-controller runs), so in a multi-host run the
+    ``hosts`` axis crosses the network and ``devices`` stays within a host.
     """
     if devices is None:
         devices = jax.devices()
@@ -101,8 +102,8 @@ def make_ladder_mesh(n_ladder_shards, devices=None):
     The first axis shards the temperature ladder itself; the second shards
     walkers within each replica. The replica-exchange K-axis rolls in
     ``tempering._swap_phase`` then lower to XLA collective-permutes between
-    ladder-NEIGHBOR devices — one hop on a ring ICI topology, never
-    all-to-all. Pass the result as ``ParallelTemperingSampler(mesh=...)``;
+    ladder-NEIGHBOR devices — point-to-point transfers between
+    neighbours, never all-to-all. Pass the result as ``ParallelTemperingSampler(mesh=...)``;
     the sampler picks the layout from the axis names.
     """
     devices = list(jax.devices() if devices is None else devices)

@@ -9,7 +9,7 @@ jitted over a :class:`jax.sharding.Mesh` with the walker axis sharded;
 GSPMD partitioning supplies what the pthread runtime hand-built:
 
 - red/black phase barriers  → collective boundaries in the XLA program
-- complementary-set access  → all-gather of the opposite half over ICI/DCN
+- complementary-set access  → all-gather of the opposite half
 - acceptance counters       → all-reduce (psum)
 - per-thread pcg64 streams  → partitionable threefry (bitwise identical
   results at ANY device count — the reference's threaded sampler is

@@ -9,7 +9,7 @@ sequential-latent machinery); north-star scope, completing the time-series
 layer next to the exact linear-Gaussian path in
 :mod:`mcmcpp_tpu.models.lgss`.
 
-TPU-native design
+Accelerator-native design
 -----------------
 The particle axis is the vector axis: every user hook takes the FULL
 ``(N, D)`` particle block, so one filter step is a handful of fused

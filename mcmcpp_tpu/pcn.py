@@ -15,8 +15,8 @@ The dimension-robust sibling of
 machinery; pCN trades ESS's rejection-free shrinking loop for a single
 fixed-cost likelihood evaluation per step and a tunable step β).
 
-TPU shape: chains are a vmapped (C, P) batch (axis mesh-shardable); one
-(C, P) × (P, P) prior-Cholesky matmul on the MXU plus one batched
+Accelerator shape: chains are a vmapped (C, P) batch (axis mesh-shardable); one
+(C, P) × (P, P) prior-Cholesky matmul plus one batched
 likelihood per step, branchless accept — the whole transition is a
 single fused program with no data-dependent control flow.
 

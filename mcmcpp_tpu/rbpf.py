@@ -25,12 +25,12 @@ time-series layer: this is the exact bridge between the pure-Kalman path
 (:mod:`mcmcpp_tpu.particle`), and the natural filter for the switching
 SSMs the Gibbs layer fits offline (HMMKernel × LGSSKernel).
 
-TPU-native design
+Accelerator-native design
 -----------------
 The per-step work is N independent tiny Kalman updates — the worst
 possible shapes one at a time, but batched over the particle axis they
-become (N, D, D) einsum matmuls and one batched (N, E, E) Cholesky: MXU
-work, not VPU loops. Time is a single ``lax.scan``; resampling gathers
+become (N, D, D) einsum matmuls and one batched (N, E, E) Cholesky: matmul
+work, not elementwise loops. Time is a single ``lax.scan``; resampling gathers
 (z, m, P) together; the covariance update uses the Joseph form so f32
 moments stay symmetric-PSD over long streams.
 """

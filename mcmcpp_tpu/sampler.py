@@ -1,6 +1,6 @@
 """Ensemble sampler: red/black half-ensemble stepping under ``lax.scan``.
 
-TPU-native rebuild of ``MCMCpp/EnsembleSampler.h`` (sequential) and
+accelerator-native rebuild of ``MCMCpp/EnsembleSampler.h`` (sequential) and
 ``MCMCpp/ParallelEnsembleSampler.h`` (pthread pool) as ONE code path:
 
 - The walker ensemble is two device arrays ``(W/2, P)`` (red/black halves)
@@ -183,8 +183,8 @@ class EnsembleSampler:
     max_chain_bytes : host chain capacity (default 2 GiB, ≙ EnsembleSampler.h:67).
     batched : set True if logp_fn already maps (n, P) -> (n,).
     prng_impl : "threefry2x32" (default; bitwise reproducible at any device
-        count) or "rbg" (XLA hardware RngBitGenerator — measured ~16% faster
-        steps on v5e, reproducible per fixed backend/topology only).
+        count) or "rbg" (XLA RngBitGenerator; reproducible per fixed
+        backend/topology only).
     store_dtype : optional reduced-precision dtype for STORED rows only
         (e.g. ``jnp.bfloat16``): the sampling compute path stays ``dtype``,
         but chunks are down-cast on device before the device->host offload

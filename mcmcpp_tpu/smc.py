@@ -23,7 +23,7 @@ particle set is the union {seeds} ∪ {all K intermediate ensembles}, again of
 size N. Since the mutation kernel leaves p_β invariant, the union is a valid
 (dependent) sample from p_β and the standard like^Δβ weights/evidence
 estimator apply; per stage only M chains are advanced instead of N, so the
-same device FLOPs buy (K+1)× the particle diversity. On TPU the K collected
+same device FLOPs buy (K+1)× the particle diversity. The K collected
 ensembles fall out of the mutation ``lax.scan``'s stacked outputs for free.
 """
 

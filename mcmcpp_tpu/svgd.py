@@ -21,10 +21,10 @@ north-star scope completing the VI layer: parametric (ADVI), flow
 quality measure for exactly this kind of particle approximation (same
 Stein operator, same score-only access).
 
-TPU-native design
+Accelerator-native design
 -----------------
 One update is three (N, N)/(N, P) matmuls plus elementwise maps — the
-same pairwise-algebra diet as the KSD module, all MXU work: squared
+same pairwise-algebra diet as the KSD module, all matmul work: squared
 distances from one Gram product, the kernel-score consensus as
 ``K @ scores``, and the repulsion term in closed form for the RBF
 kernel (``(Σ_j K_ij) x_i − K @ x``, ×2/h). The whole fit is a single

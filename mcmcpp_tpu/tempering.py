@@ -1,6 +1,6 @@
 """Parallel tempering (replica exchange) over a temperature × walker grid.
 
-Beyond-reference capability (ROADMAP item, natural TPU fit): K tempered
+Beyond-reference capability (ROADMAP item, natural accelerator fit): K tempered
 replicas of the full red/black walker ensemble run as ONE ``(K, W/2, P)``
 batch — the temperature axis is just another vmapped (and shardable)
 dimension. Each replica targets π^β_k with a shared mover (acceptance

@@ -11,7 +11,7 @@ ones. Completes this framework's Gaussian-filter family:
 - ensemble nonlinear, large D: ``enkf.ensemble_kalman_filter`` (EnKF/ETKF)
 - full non-Gaussian: ``particle.particle_filter``
 
-TPU shape: one ``lax.scan`` over time; each step is a (2D+1, D) batch
+Accelerator shape: one ``lax.scan`` over time; each step is a (2D+1, D) batch
 through the user's vectorized ``f``/``h`` plus small matmuls/Cholesky —
 fixed shapes, no branches, fully differentiable in any parameters
 closed over by the maps (the predictive loglik can drive gradient-based

@@ -1,4 +1,4 @@
-"""Utility layer: observability/metrics (TPU-native stand-in for the
+"""Utility layer: observability/metrics (accelerator-side stand-in for the
 reference's ``MCMCpp/Utility`` grab-bag; the allocation/deleter pieces live
 in ``native/``, PRNG plumbing in ``ops/random.py``)."""
 

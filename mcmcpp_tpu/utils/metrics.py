@@ -1,7 +1,7 @@
 """Observability: throughput counters + profiler hooks.
 
 The reference has no tracing/profiling at all (SURVEY.md §5 — commented-out
-couts). This is the TPU equivalent: walker-updates/s and ESS/s counters for
+couts). This is the accelerator equivalent: walker-updates/s and ESS/s counters for
 runs, and a thin wrapper over ``jax.profiler`` for device traces.
 """
 

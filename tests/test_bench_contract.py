@@ -1,18 +1,15 @@
-"""bench.py driver-contract helpers: spread stats, vs_prev artifact
-parsing. The measurement paths need the TPU; these guard the glue the
-driver artifact depends on (a malformed JSON line loses the round's
-perf evidence — see bench.py's orchestrator docstring)."""
+"""bench.py helpers: spread stats and the benchmark target. The
+measurement paths need the GPU; these guard the glue the JSON line
+depends on."""
 
-import json
 import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import bench  # noqa: E402  (repo-root module, like test_bench_orchestrator)
+import bench  # noqa: E402  (repo-root module)
 
 
 def test_spread_median_min_max():
@@ -21,30 +18,8 @@ def test_spread_median_min_max():
     assert spread == {"median": 2.0, "min": 1.0, "max": 3.0, "n": 3}
 
 
-def test_vs_prev_reads_newest_parsed_artifact(tmp_path, monkeypatch):
-    for n, value, rc in ((3, 2.0, 0), (4, 4.0, 0), (5, 8.0, 1)):
-        (tmp_path / f"BENCH_r{n:02d}.json").write_text(json.dumps({
-            "rc": rc, "parsed": {"value": value, "ess": 10.0 * n},
-        }))
-    (tmp_path / "BENCH_rX.json").write_text("not json")
-    monkeypatch.setattr(bench, "__file__", str(tmp_path / "bench.py"))
-    n, prev = bench._prev_artifact()
-    assert n == 4 and prev["value"] == 4.0  # rc=1 artifact skipped
-    out = bench._vs_prev({"value": 8.0, "ess": 20.0, "unit": "x",
-                          "spread": {"a": 1}})
-    assert out["round"] == 4
-    assert out["value"] == pytest.approx(2.0)
-    assert out["ess"] == pytest.approx(0.5)
-    assert "unit" not in out and "spread" not in out
-
-
-def test_vs_prev_none_without_artifacts(tmp_path, monkeypatch):
-    monkeypatch.setattr(bench, "__file__", str(tmp_path / "bench.py"))
-    assert bench._vs_prev({"value": 1.0}) is None
-
-
 def test_target_is_mxu_shaped():
-    """The bench target must stay a BATCHED matmul logp (the MXU path
+    """The bench target must stay a BATCHED matmul logp (the matmul path
     the headline number depends on)."""
     import jax.numpy as jnp
 

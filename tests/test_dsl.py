@@ -465,7 +465,7 @@ class TestDiscreteObservations:
 
 
 class TestTruncated:
-    """Truncated supports (ref has none — TPU-rebuild extension; VERDICT
+    """Truncated supports (ref has none — rebuild extension; VERDICT
     round-1 item 7)."""
 
     def test_logpdf_normalizes_and_respects_bounds(self):

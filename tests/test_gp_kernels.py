@@ -115,8 +115,8 @@ def test_white_noise_is_gram_only():
 
 
 def test_gram_cholesky_escalates_jitter_on_nan():
-    """TPU-robustness guard (round 5): the TPU's blocked f32 Cholesky
-    NaNs on ill-conditioned grams CPU LAPACK survives; gram_cholesky
+    """Robustness guard: an accelerator's blocked f32 Cholesky can NaN
+    on ill-conditioned grams CPU LAPACK survives; gram_cholesky
     must escalate jitter until the factorization is finite, stay
     jittable, and stay reverse-differentiable (the Gibbs interweave
     kernel differentiates through it)."""

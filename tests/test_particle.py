@@ -464,7 +464,7 @@ def test_fully_adapted_apf_collapses_variance():
     ll_boot = np.asarray(jax.vmap(
         lambda k: particle_filter(k, base, None, ys, 128).loglik
     )(keys), np.float64)
-    # measured ~4-5x collapse on both CPU and TPU; 0.3 leaves margin for
+    # measured ~4-5x collapse on the CPU; 0.3 leaves margin for
     # backend-dependent resampling branches at this rep count
     assert ll_fa.var(ddof=1) < 0.3 * ll_boot.var(ddof=1), (
         ll_fa.var(ddof=1), ll_boot.var(ddof=1),
